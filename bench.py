@@ -1,4 +1,4 @@
-"""Headline benchmark: flow pairs/sec/chip at 854×480 (multseg).
+"""Headline benchmark: flow pairs/sec/GPU at 854×480 (multseg).
 
 Scenario (BASELINE.md north-star): DAVIS-scale frame pairs at 854×480 with two
 object segments each. Every segment runs the FULL reference solver schedule
@@ -7,21 +7,23 @@ validated to <0.1px mean EPE against the reference .flo on the cat512 golden
 fixture, scripts/golden_cat512.py), then is rasterized to warped RGB/mask and
 composed (multseg flatten semantics).
 
-Two execution models on the SAME chip:
+Two execution models on the SAME GPU:
 - baseline ("reference-equivalent"): one full-frame solve at a time, outputs
   fetched after each — the reference's execution model (one CUDA solve per
   process, para_gen.py:560-567), minus its per-launch overheads;
 - ours: segments solved on TIGHT bucket-aligned bounding-box crops (exact —
-  inert excluded pixels) with the multi-problem interleaved VMEM-resident
-  Pallas PCG kernel, rasterized onto separate displacement-padded canvas
-  buckets, streamed through pipeline/batch.BatchRunner (chunks dispatch as
-  they fill; host prep runs in a prefetch thread), flow fetched as i16
+  inert excluded pixels), each bucket's problems in one vmapped XLA solve
+  program, rasterized onto separate displacement-padded canvas buckets,
+  streamed through pipeline/batch.BatchRunner (chunks dispatch as they
+  fill; host prep runs in a prefetch thread), flow fetched as i16
   fixed-point.
 
-Prints ONE JSON line:
-  value       = ours, flow pairs/sec/chip
-  vs_baseline = ours / reference-equivalent (same-chip speedup from the
-                TPU-native execution model; the reference's own GPU numbers
+Needs a GPU (exits non-zero otherwise) and prints the device first: its
+platform, kind, count, and nvidia-smi's name and power limit. Then ONE JSON
+line:
+  value       = ours, flow pairs/sec/GPU
+  vs_baseline = ours / reference-equivalent (same-GPU speedup from the
+                batched execution model; the reference's own GPU numbers
                 are unpublished — BASELINE.md)
 """
 
@@ -36,8 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_PAIRS = 16  # pairs per timed batch (2 segments each): enough chunks that
 # the streaming runner's startup prep bubble and the last chunk's fetch+paste
-# tail amortize (at 8 pairs they were ~22% of the run — steady-state
-# throughput is the honest number for a streaming pipeline)
+# tail amortize (steady-state throughput is the honest number for a
+# streaming pipeline)
 H, W = 480, 854
 SEG_SHAPES = (((90, 330), (180, 300)), ((260, 480), (120, 260)))  # centers/sizes
 
@@ -68,8 +70,14 @@ def _segment_problem(seed, center, size):
 
 
 def main():
-    from arap_flow_tpu.models.arap import ArapDeformer
-    from arap_flow_tpu.ops.solver import SolverConfig
+    from arap_flow.models.arap import ArapDeformer
+    from arap_flow.ops.solver import SolverConfig
+    from arap_flow.utils.device import require_gpu
+
+    dev = require_gpu()
+    print(f"device: {dev['platform']} {dev['kind']} x{dev['count']}",
+          flush=True)
+    print(dev["smi"], flush=True)
 
     cfg = SolverConfig()  # full parity schedule
 
@@ -91,13 +99,12 @@ def main():
     t_base = sorted(base_times)[1]
     base_pairs_per_s = N_PAIRS / t_base
 
-    # ---- ours: bucket-aligned crops (exact), multi-problem resident kernel ----
-    # segments bucketed across pairs and solved in interleaved batches (the
-    # per-iteration dependency chain is latency-bound; B problems share it —
-    # bitwise identical to per-problem solves, ~1.4x faster)
-    from arap_flow_tpu.ops.energy import ArapWeights
-    from arap_flow_tpu.pipeline.batch import BatchRunner, make_task
-    from arap_flow_tpu.utils.profiling import StageTimer
+    # ---- ours: bucket-aligned crops (exact), vmapped batches per bucket ----
+    # segments bucketed across pairs and solved in batches (bitwise
+    # identical to per-problem solves)
+    from arap_flow.ops.energy import ArapWeights
+    from arap_flow.pipeline.batch import BatchRunner, make_task
+    from arap_flow.utils.profiling import StageTimer
 
     def run_all(timer=None):
         # STREAMED: each task is handed to the runner as soon as its host
@@ -164,12 +171,13 @@ def main():
     print(
         json.dumps(
             {
-                "metric": "flow pairs/sec/chip, 854x480 multseg (2 segs/pair), "
+                "metric": "flow pairs/sec/GPU, 854x480 multseg (2 segs/pair), "
                 "full 19x8x400 reference schedule (EPE<0.1px golden-validated); "
                 "solve+raster+compose+D2H from file constraints — MATCHING "
                 "EXCLUDED (matcher-inclusive number in e2e_*)",
                 "value": round(ours_pairs_per_s, 3),
-                "unit": "pairs/s/chip",
+                "unit": "pairs/s/GPU",
+                "device": {k: dev[k] for k in ("platform", "kind", "count")},
                 "vs_baseline": round(ours_pairs_per_s / base_pairs_per_s, 2),
                 "runs_s": [round(t, 3) for t in times],
                 "baseline_runs_s": [round(t, 3) for t in base_times],
@@ -183,9 +191,8 @@ def main():
 
 def _e2e_measure(n_pairs: int = 24):
     # 24 pairs: enough 4-pair chunks that the depth-2 matcher-prep/solve
-    # pipeline reaches steady state (measured: 2.42 pairs/s at 12 pairs vs
-    # 2.63-2.75 at 24, same tree — the fill bubble + last-chunk tail are
-    # ~8% at 24; same steady-state argument as the solve arm's N_PAIRS=16)
+    # pipeline reaches steady state (same argument as the solve arm's
+    # N_PAIRS=16)
     """Matcher-INCLUSIVE end-to-end number: the full user-visible pipeline
     (JPEG/PNG decode -> native matcher -> constraint filter -> batched solves
     -> raster -> compose -> .flo/PNG writes) on a synthetic 854x480 DAVIS-like
@@ -193,7 +200,7 @@ def _e2e_measure(n_pairs: int = 24):
     This is the honest product throughput — the solve-arm headline above
     excludes matching (the reference got DeepMatching 'for free' on CPUs
     while GPUs solved, para_gen.py:227-240 vs 560-567; here the matcher
-    spends device time on the same chip)."""
+    spends device time on the same GPU)."""
     import shutil
     import tempfile
 
@@ -201,7 +208,7 @@ def _e2e_measure(n_pairs: int = 24):
                                     "scripts"))
     from pipeline_bench import check_flow_accuracy, make_dataset
 
-    from arap_flow_tpu.pipeline.para_gen import PipelineFlags, main_pipeline
+    from arap_flow.pipeline.para_gen import PipelineFlags, main_pipeline
 
     root = tempfile.mkdtemp(prefix="arap_bench_e2e_")
     try:
@@ -223,12 +230,12 @@ def _e2e_measure(n_pairs: int = 24):
         warm = sorted(runs[1:])[1]  # median of 3 warm, symmetric with the
         # solve arm's median-of-3 (round-4 verdict: best-of-2 overstated)
         return {
-            "e2e_metric": "END-TO-END pairs/sec/chip incl. matching: decode + "
+            "e2e_metric": "END-TO-END pairs/sec/GPU incl. matching: decode + "
             "native matcher + filter + batched solves (19x8x400) + raster + "
             "compose + .flo/PNG writes, 854x480 multseg, warm "
             "(median of 3 warm runs)",
             "e2e_value": round(n_pairs / warm, 3),
-            "e2e_unit": "pairs/s/chip",
+            "e2e_unit": "pairs/s/GPU",
             "e2e_runs_s": [round(t, 2) for t in runs],
             "e2e_flow_accuracy": "checked (<1px median rigid seg + <0.8px "
             "median EPE vs analytic non-rigid flow)",

@@ -3,7 +3,7 @@
     python examples/demo_cat512.py [--out DIR]
 
 Loads the reference-shipped inputs (RGB, mask, 9 constraint markers), runs the
-full ARAP schedule on the TPU (or CPU), writes flow + warped outputs, and—if
+full ARAP schedule on the GPU (or CPU), writes flow + warped outputs, and—if
 the golden .flo is present—prints the end-point error against it.
 """
 
@@ -16,11 +16,11 @@ import numpy as np
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.constraints import read_constraint_file
-from arap_flow_tpu.io.image import load_mask, load_rgb, save_image
-from arap_flow_tpu.models.arap import ArapDeformer
-from arap_flow_tpu.ops.solver import SolverConfig
+from arap_flow.io import flo
+from arap_flow.io.constraints import read_constraint_file
+from arap_flow.io.image import load_mask, load_rgb, save_image
+from arap_flow.models.arap import ArapDeformer
+from arap_flow.ops.solver import SolverConfig
 
 FIXTURES = "/root/reference/ARAP/deformation"
 GOLDEN_FLO = "/root/reference/ARAP/warping/cat512_iFlo.flo"

@@ -5,13 +5,13 @@
 This is executable migration documentation (docs/MIGRATION.md): the loop below
 is the reference's `CombinedSolverBase::singleSolve` + `OptSolver::solve`
 (CombinedSolverBase.h:99-120, OptSolver.h:72-91) written against
-`arap_flow_tpu.compat` — define a problem, plan it for the image dims, bind
+`arap_flow.compat` — define a problem, plan it for the image dims, bind
 the seven ARAP parameter slots in declaration order (arap_plan.t:2-8), anneal
 the constraint image across outer iterations (CombinedSolver.h:199-242), and
 step the solver, reading the cost back per step. The unknown buffers (Offset,
 Angle) are mutated in place, as the Opt API does.
 
-Runs in a few seconds on CPU: `env -u PYTHONPATH JAX_PLATFORMS=cpu python ...`
+Runs in a few seconds on CPU: `JAX_PLATFORMS=cpu python ...`
 """
 
 import argparse
@@ -22,7 +22,7 @@ import numpy as np
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
-from arap_flow_tpu import compat as opt
+from arap_flow import compat as opt
 
 
 def main():

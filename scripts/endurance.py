@@ -37,9 +37,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
+sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
 
-from PIL import Image
-
+from arap_flow.io.image import load_mask, save_image
 from synth_nonrigid import (bounce as _bounce, draw_nonrigid, make_textures,
                             nr_check_epe)
 
@@ -94,12 +94,8 @@ def make_dataset(root, n_frames, seed=0):
         mask[ob] = 1
         draw_nonrigid(img, mask, tex, 2, c2[0], c2[1], s2[0], s2[1],
                       _nr_amp(*s2), t)
-        Image.fromarray(img).save(
-            osp.join(root, "orgRGB", "seq0", f"{t:05d}.jpg"), quality=95
-        )
-        Image.fromarray(mask).save(
-            osp.join(root, "orgMasks", "seq0", f"{t:05d}.png")
-        )
+        save_image(osp.join(root, "orgRGB", "seq0", f"{t:05d}.png"), img)
+        save_image(osp.join(root, "orgMasks", "seq0", f"{t:05d}.png"), mask)
 
 
 class RssSampler(threading.Thread):
@@ -154,12 +150,12 @@ def check_accuracy(out_dir, data_dir, t):
     size block: seg 1 median flow must match its rigid translation; seg 2 is
     gated by EPE against the analytic non-rigid flow (median < 1.0 px —
     consistent with the rigid ±1 px tolerance)."""
-    from arap_flow_tpu.io import flo as flo_io
+    from arap_flow.io import flo as flo_io
 
     flo_path = osp.join(out_dir, "Flow", "seq0", f"{t:05d}.flo")
     msk_path = osp.join(data_dir, "orgMasks", "seq0", f"{t:05d}.png")
     u, v = flo_io.flow_read(flo_path)
-    mask = np.array(Image.open(msk_path))
+    mask = load_mask(msk_path)
     c0, c1 = _centers(t), _centers(t + 1)
     bad = []
     sel = mask == 1
@@ -188,8 +184,8 @@ def main():
     census = CompileCensus()
     logging.getLogger("jax").addHandler(census)
 
-    from arap_flow_tpu.pipeline import para_gen
-    from arap_flow_tpu.pipeline.para_gen import PipelineFlags, main_pipeline
+    from arap_flow.pipeline import para_gen
+    from arap_flow.pipeline.para_gen import PipelineFlags, main_pipeline
 
     root = "/tmp/arap_endurance"
     shutil.rmtree(root, ignore_errors=True)
@@ -262,9 +258,8 @@ def main():
     # (b) the compile set must SATURATE: the size schedule cycles every
     #     BLOCK*len(SIZES)=96 pairs; no NEW program key may first appear in
     #     the final quarter of a >=3-cycle run. Anchored to PAIR PROGRESS
-    #     (chunk-completion timestamps) — relay stalls make wall fractions
-    #     meaningless.
-    from arap_flow_tpu.models import arap as arap_model
+    #     (chunk-completion timestamps), not to wall fractions.
+    from arap_flow.models import arap as arap_model
 
     canvas_events = [
         (t, sig) for t, sig in census.events
@@ -288,7 +283,7 @@ def main():
     # first-fire arbitrarily deep into a run. That is bounded-set behavior —
     # only FULL-chunk programs must saturate; remainder first-uses are
     # reported and capped.
-    from arap_flow_tpu.pipeline.batch import max_chunk_for
+    from arap_flow.pipeline.batch import max_chunk_for
 
     late_full = [
         (t, k) for t, k in late

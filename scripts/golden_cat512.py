@@ -1,7 +1,7 @@
 """Golden end-to-end validation: run the full reference schedule on the cat512
 deformation fixture and compare against the shipped outputs.
 
-Run on TPU:    python scripts/golden_cat512.py
+Run on the GPU:    python scripts/golden_cat512.py
 Run on CPU:    JAX_PLATFORMS=cpu python scripts/golden_cat512.py  (slow)
 
 Expected parity: EPE < 0.1 px vs ARAP/warping/cat512_iFlo.flo (the reference
@@ -16,13 +16,12 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.constraints import read_constraint_file
-from arap_flow_tpu.io.image import load_rgb, load_mask
-from arap_flow_tpu.models.arap import ArapDeformer
-from arap_flow_tpu.ops.solver import SolverConfig
+from arap_flow.io import flo
+from arap_flow.io.constraints import read_constraint_file
+from arap_flow.io.image import load_rgb, load_mask
+from arap_flow.models.arap import ArapDeformer
+from arap_flow.ops.solver import SolverConfig
 
 
 def main():
@@ -61,7 +60,7 @@ def main():
     print(f"EPE vs golden .flo: mean {epe.mean():.4f}px  p99 "
           f"{np.percentile(epe, 99):.4f}px  max {epe.max():.4f}px")
 
-    gmask = np.array(Image.open(d / "cat512_wMsk.png").convert("L"))
+    gmask = load_mask(d / "cat512_wMsk.png")
     magree = ((res.warped_mask > 0) == (gmask > 0)).mean()
     grgb = load_rgb(d / "cat512_wRGB.png")
     cov = gmask > 0

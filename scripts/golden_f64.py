@@ -1,10 +1,9 @@
 """f64 golden record: the full cat512 parity schedule in double precision
 (the _opt_double_precision switch, /root/reference/ARAP/API/src/precision.t:1-6,
 Opt.h:10-30 — the reference provides f64 exactly to validate that f32
-truncation is immaterial). Runs on CPU (XLA backend; the Pallas kernels are
-f32-only by design and f64 auto-routes off them):
+truncation is immaterial). Runs on any backend, e.g. the CPU:
 
-    env -u PYTHONPATH JAX_PLATFORMS=cpu python scripts/golden_f64.py
+    JAX_PLATFORMS=cpu python scripts/golden_f64.py
 """
 
 import pathlib
@@ -15,11 +14,11 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.constraints import add_border_pins, read_constraint_file
-from arap_flow_tpu.io.image import load_mask
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.ops import solver as S
+from arap_flow.io import flo
+from arap_flow.io.constraints import add_border_pins, read_constraint_file
+from arap_flow.io.image import load_mask
+from arap_flow.ops import energy as E
+from arap_flow.ops import solver as S
 
 
 def main():
@@ -33,7 +32,7 @@ def main():
     H, W = mask.shape
     cons = add_border_pins(cons, W, H)
     gu, gv = flo.flow_read(w / "cat512_iFlo.flo")
-    cfg = S.SolverConfig(backend="xla")  # full 19 x 8 x 400 parity schedule
+    cfg = S.SolverConfig()  # full 19 x 8 x 400 parity schedule
 
     with jax.enable_x64():
         ops = E.build_operands(mask, cons, dtype=np.float64)

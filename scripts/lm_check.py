@@ -14,11 +14,11 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.constraints import add_border_pins, read_constraint_file
-from arap_flow_tpu.io.image import load_mask
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.ops.lm import LMConfig, lm_solve
+from arap_flow.io import flo
+from arap_flow.io.constraints import add_border_pins, read_constraint_file
+from arap_flow.io.image import load_mask
+from arap_flow.ops import energy as E
+from arap_flow.ops.lm import LMConfig, lm_solve
 
 
 def main():

@@ -21,7 +21,7 @@ matcher would emit); arm B runs the native matcher. Both arms solve with the
 IDENTICAL full parity schedule and are scored against the analytic flow over
 the solve region.
 
-Run on TPU: python scripts/matcher_ab.py          (~6 solves + 2 matcher programs)
+Run on the GPU: python scripts/matcher_ab.py          (~6 solves + 2 matcher programs)
 Quick CPU:  JAX_PLATFORMS=cpu python scripts/matcher_ab.py --fast
 """
 
@@ -33,14 +33,13 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.constraints import read_constraint_file
-from arap_flow_tpu.io.image import load_rgb, load_mask
-from arap_flow_tpu.models.arap import ArapDeformer
-from arap_flow_tpu.ops.matching import match_images
-from arap_flow_tpu.ops.solver import SolverConfig
+from arap_flow.io import flo
+from arap_flow.io.constraints import read_constraint_file
+from arap_flow.io.image import load_rgb, load_mask
+from arap_flow.models.arap import ArapDeformer
+from arap_flow.ops.matching import match_images
+from arap_flow.ops.solver import SolverConfig
 
 
 # ---------------------------------------------------------------- synthetic
@@ -178,7 +177,7 @@ def main():
     rgb1 = load_rgb(d / "cat512_iRGB.png")
     amask = load_mask(d / "cat512_iMsk.png")  # 0 = object (solve region)
     rgb2 = load_rgb(d / "cat512_wRGB.png")
-    wmsk = np.array(Image.open(d / "cat512_wMsk.png").convert("L"))
+    wmsk = load_mask(d / "cat512_wMsk.png")
     gu, gv = flo.flow_read(w / "cat512_iFlo.flo")
     full = np.ones_like(amask, bool)
 

@@ -1,4 +1,4 @@
-"""End-to-end pipeline benchmark on a synthetic DAVIS-like tree (real TPU).
+"""End-to-end pipeline benchmark on a synthetic DAVIS-like tree.
 
 Builds N frame pairs at 854×480 with two textured moving objects — object 1
 rigid, object 2 NON-RIGID (rigid translation + an interior sinusoidal
@@ -21,9 +21,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
+sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
 
-from PIL import Image
-
+from arap_flow.io.image import load_mask, save_image
 from synth_nonrigid import (bounce as _bounce, draw_nonrigid, make_textures,
                             nr_check_epe)
 
@@ -42,6 +42,8 @@ def object_positions(t):
 
 
 def make_dataset(root, n_frames, H=480, W=854, seed=0):
+    """DAVIS-style tree of PNG frames and masks (orgRGB/seq0, orgMasks/seq0)
+    with the two bench objects, generated from `seed`."""
     tex, bg = make_textures(H, W, seed)
     os.makedirs(osp.join(root, "orgRGB", "seq0"), exist_ok=True)
     os.makedirs(osp.join(root, "orgMasks", "seq0"), exist_ok=True)
@@ -55,18 +57,14 @@ def make_dataset(root, n_frames, H=480, W=854, seed=0):
         mask[ob1] = 1
         draw_nonrigid(img, mask, tex, 2, y1 + NR_RY, x1 + NR_RX,
                       NR_RY, NR_RX, NR_AMP, t)
-        Image.fromarray(img).save(
-            osp.join(root, "orgRGB", "seq0", f"{t:05d}.jpg"), quality=95
-        )
-        Image.fromarray(mask).save(
-            osp.join(root, "orgMasks", "seq0", f"{t:05d}.png")
-        )
+        save_image(osp.join(root, "orgRGB", "seq0", f"{t:05d}.png"), img)
+        save_image(osp.join(root, "orgMasks", "seq0", f"{t:05d}.png"), mask)
 
 
 def main():
     import jax
 
-    from arap_flow_tpu.pipeline.para_gen import PipelineFlags, main_pipeline
+    from arap_flow.pipeline.para_gen import PipelineFlags, main_pipeline
 
     n_pairs = int(sys.argv[1]) if len(sys.argv) > 1 else 6
     print("devices:", jax.devices())
@@ -123,7 +121,7 @@ def check_flow_accuracy(out_dir, data_dir, nr_thresh=0.8):
     binary ARAP masks)."""
     import numpy as np
 
-    from arap_flow_tpu.io import flo as flo_io
+    from arap_flow.io import flo as flo_io
 
     flo_path = osp.join(out_dir, "Flow", "seq0", "00000.flo")
     msk_path = osp.join(data_dir, "orgMasks", "seq0", "00000.png")
@@ -131,9 +129,7 @@ def check_flow_accuracy(out_dir, data_dir, nr_thresh=0.8):
         print("  flow check: products missing, skipped")
         return
     u, v = flo_io.flow_read(flo_path)
-    mask = np.array(Image.open(msk_path))
-    if mask.ndim == 3:
-        mask = mask[..., 0]
+    mask = load_mask(msk_path)
     p0, p1 = object_positions(0), object_positions(1)
     ok = True
     # seg 1: rigid median check

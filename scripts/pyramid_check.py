@@ -12,12 +12,12 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.constraints import add_border_pins, read_constraint_file
-from arap_flow_tpu.io.image import load_mask
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.ops import solver as S
-from arap_flow_tpu.ops.pyramid import solve_pyramid
+from arap_flow.io import flo
+from arap_flow.io.constraints import add_border_pins, read_constraint_file
+from arap_flow.io.image import load_mask
+from arap_flow.ops import energy as E
+from arap_flow.ops import solver as S
+from arap_flow.ops.pyramid import solve_pyramid
 
 
 def main():

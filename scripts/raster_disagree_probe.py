@@ -2,7 +2,7 @@
 on the golden cat512 warp?  Informs the window/anchor needed for >=99.95%
 device/exact raster agreement (round-4 item).
 
-Run on CPU: env -u PYTHONPATH JAX_PLATFORMS=cpu python scripts/raster_disagree_probe.py
+Run on CPU: JAX_PLATFORMS=cpu python scripts/raster_disagree_probe.py
 """
 import pathlib
 import sys
@@ -12,14 +12,13 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from PIL import Image
 
 import jax.numpy as jnp
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.image import load_rgb, load_mask
-from arap_flow_tpu.native.host_raster import rasterize_warp_exact
-from arap_flow_tpu.ops.rasterize import make_warp, rasterize_flow, _seed_map
+from arap_flow.io import flo
+from arap_flow.io.image import load_rgb, load_mask
+from arap_flow.native.host_raster import rasterize_warp_exact
+from arap_flow.ops.rasterize import make_warp, rasterize_flow, _seed_map
 
 
 def agreement(wmask, emask, wrgb, ergb):

@@ -1,4 +1,4 @@
-"""Time the device rasterizer at production crop sizes vs window config (TPU).
+"""Time the device rasterizer at production crop sizes vs window config.
 
     python scripts/raster_probe.py
 """
@@ -13,7 +13,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import jax
 import jax.numpy as jnp
 
-from arap_flow_tpu.ops.rasterize import rasterize_flow
+from arap_flow.ops.rasterize import rasterize_flow
 
 
 def main():

@@ -4,7 +4,7 @@ does the true last-write-wins winner sit relative to the max-seed and to a
 min-combining seed?  Evaluates candidate-set designs (union of a rectangle
 around each seed) by exact miss count.
 
-Run: env -u PYTHONPATH JAX_PLATFORMS=cpu python scripts/raster_window_design.py
+Run: JAX_PLATFORMS=cpu python scripts/raster_window_design.py
 """
 import pathlib
 import sys
@@ -15,10 +15,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax.numpy as jnp
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.image import load_rgb, load_mask
-from arap_flow_tpu.native.host_raster import rasterize_warp_exact, warp_from_flow
-from arap_flow_tpu.ops.rasterize import _seed_map
+from arap_flow.io import flo
+from arap_flow.io.image import load_rgb, load_mask
+from arap_flow.native.host_raster import rasterize_warp_exact, warp_from_flow
+from arap_flow.ops.rasterize import _seed_map
 
 
 def fill_dilate(seed, n, combine, empty):

@@ -17,7 +17,7 @@ Then the cat512 fixture (the one real-imagery case; artist warp with ~50%
 local stretch and 139 px extremes) runs arm B of the through-solve A/B
 (scripts/matcher_ab.py) with both banks.
 
-Run on TPU:  python scripts/stretch_ladder.py          (~10 min with compiles)
+Run on the GPU:  python scripts/stretch_ladder.py          (~10 min with compiles)
 Quick CPU:   JAX_PLATFORMS=cpu python scripts/stretch_ladder.py --fast
 """
 
@@ -29,15 +29,14 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.image import load_rgb, load_mask
-from arap_flow_tpu.models.arap import ArapDeformer
-from arap_flow_tpu.ops.matching import (
+from arap_flow.io import flo
+from arap_flow.io.image import load_rgb, load_mask
+from arap_flow.models.arap import ArapDeformer
+from arap_flow.ops.matching import (
     DEFAULT_ROTATIONS, STRETCH_HYPOTHESES, match_images,
 )
-from arap_flow_tpu.ops.solver import SolverConfig
+from arap_flow.ops.solver import SolverConfig
 
 from matcher_ab import _filter, _texture, _warp_bilinear
 
@@ -127,7 +126,7 @@ def main():
     rgb1 = load_rgb(d / "cat512_iRGB.png")
     amask = load_mask(d / "cat512_iMsk.png")
     rgb2 = load_rgb(d / "cat512_wRGB.png")
-    wmsk = np.array(Image.open(d / "cat512_wMsk.png").convert("L"))
+    wmsk = load_mask(d / "cat512_wMsk.png")
     gu, gv = flo.flow_read(w / "cat512_iFlo.flo")
     gmag = np.hypot(gu, gv)
     obj = amask == 0

@@ -2,7 +2,7 @@
 
 Gates: (1) the pack path produces BYTE-IDENTICAL products to the jit path,
 (2) a FRESH PROCESS loads the pack without compiling (the cold-start story:
-40-300 s/program relay compiles per worker on the production platform),
+one compile set per worker otherwise),
 (3) failures fall back to the jit path silently."""
 
 import json
@@ -18,8 +18,8 @@ def _problem(B=2, H=32, W=64, seed=0):
     import jax
     import jax.numpy as jnp
 
-    from arap_flow_tpu.io.constraints import add_border_pins
-    from arap_flow_tpu.ops import energy as E
+    from arap_flow.io.constraints import add_border_pins
+    from arap_flow.ops import energy as E
 
     rng = np.random.default_rng(seed)
     ops_list, rgb_list = [], []
@@ -40,7 +40,7 @@ def _problem(B=2, H=32, W=64, seed=0):
 
 
 def _cfg():
-    from arap_flow_tpu.ops.solver import SolverConfig
+    from arap_flow.ops.solver import SolverConfig
 
     return SolverConfig(num_anneal=2, gn_iters=1, max_pcg_iters=20,
                         pcg_iters=20.0)
@@ -53,8 +53,8 @@ sys.path.insert(0, {repo!r})
 os.environ["ARAP_EXEC_PACK"] = {pack!r}
 sys.path.insert(0, {testdir!r})
 from test_aot_pack import _problem, _cfg
-from arap_flow_tpu.models.arap import solve_and_raster_canvas
-from arap_flow_tpu.utils import aot
+from arap_flow.models.arap import solve_and_raster_canvas
+from arap_flow.utils import aot
 batched, rgb_b, offs = _problem()
 f, r, m = solve_and_raster_canvas(batched, rgb_b, offs, _cfg(),
                                   canvas_hw=(32, 64))
@@ -68,8 +68,8 @@ def test_pack_identical_and_fresh_process_loads(tmp_path, monkeypatch):
     pack = str(tmp_path / "pack")
     out = str(tmp_path / "child_out.npz")
 
-    from arap_flow_tpu.models.arap import solve_and_raster_canvas
-    from arap_flow_tpu.utils import aot
+    from arap_flow.models.arap import solve_and_raster_canvas
+    from arap_flow.utils import aot
 
     batched, rgb_b, offs = _problem()
     cfg = _cfg()
@@ -115,8 +115,8 @@ def test_pack_miss_falls_back_to_jit(tmp_path, monkeypatch):
     statics, NOT pack dir), so the executable cached by the previous test
     would serve this key and the corrupt file would never be read — clear
     the module state so the deserialize-failure path actually runs."""
-    from arap_flow_tpu.models.arap import solve_and_raster_canvas
-    from arap_flow_tpu.utils import aot
+    from arap_flow.models.arap import solve_and_raster_canvas
+    from arap_flow.utils import aot
 
     aot._LOADED.clear()
     aot._FAILED.clear()
@@ -128,10 +128,10 @@ def test_pack_miss_falls_back_to_jit(tmp_path, monkeypatch):
                                        canvas_hw=(32, 64))
     monkeypatch.setenv("ARAP_EXEC_PACK", pack)
     # pre-write garbage where the entry would live
-    static_kwargs = dict(static_key=cfg.resolve().static_key,
+    static_kwargs = dict(static_key=cfg.static_key,
                          canvas_hw=(32, 64), compact_flow=True,
                          transposed=False)
-    args = (batched, rgb_b, offs, cfg.resolve().dynamic)
+    args = (batched, rgb_b, offs, cfg.dynamic)
     key = aot.canvas_key(args, static_kwargs)
     os.makedirs(pack, exist_ok=True)
     path = aot._path(key)

@@ -5,9 +5,9 @@ import os.path as osp
 import numpy as np
 from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.image import save_image
-from arap_flow_tpu.pipeline import deform_tool, warp_tool
+from arap_flow.io import flo
+from arap_flow.io.image import save_image
+from arap_flow.pipeline import deform_tool, warp_tool
 
 
 def test_warp_tool_host_backend(tmp_path):
@@ -52,7 +52,7 @@ def test_deform_tool_six_paths(tmp_path):
     out_msk = str(tmp_path / "om.png")
     # tiny schedule via list mode is parity-only; use the module API with a
     # small config through the CLI's frame runner
-    from arap_flow_tpu.ops.solver import SolverConfig
+    from arap_flow.ops.solver import SolverConfig
 
     frames = [deform_tool.FramePaths(p_rgb, p_msk, p_cstr, out_flo, out_rgb, out_msk)]
     deform_tool.deform_frames(
@@ -68,7 +68,7 @@ def test_deform_tool_six_paths(tmp_path):
 
 def test_run_warp_scan(tmp_path):
     """run_warp job scan finds fd trees with the reference directory layout."""
-    from arap_flow_tpu.pipeline.run_warp import scan_jobs
+    from arap_flow.pipeline.run_warp import scan_jobs
 
     root = tmp_path
     for sub in ("Flow", "inpRGB", "inpMasks"):
@@ -86,7 +86,7 @@ def test_run_warp_scan(tmp_path):
 
 def test_build_sintel_list(tmp_path):
     """run_arap --input: Sintel-style tree scan builds 6-tuple jobs."""
-    from arap_flow_tpu.pipeline.run_arap import build_sintel_list
+    from arap_flow.pipeline.run_arap import build_sintel_list
 
     root = tmp_path
     (root / "clean" / "alley_1").mkdir(parents=True)
@@ -110,9 +110,9 @@ def test_run_arap_sintel_tree_end_to_end(tmp_path, monkeypatch):
     scanned, solved THROUGH THE BATCHED SOLVER (same-shape frames grouped
     into one program), and .flo + warped PNGs land in flow_arap/{pass}/seq.
     Mirrors run_arap.py:27-80 end-to-end."""
-    from arap_flow_tpu.models import arap as arap_mod
-    from arap_flow_tpu.ops.solver import SolverConfig
-    from arap_flow_tpu.pipeline.run_arap import build_sintel_list
+    from arap_flow.models import arap as arap_mod
+    from arap_flow.ops.solver import SolverConfig
+    from arap_flow.pipeline.run_arap import build_sintel_list
 
     root = tmp_path
     H, W = 40, 48

@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from arap_flow_tpu.ops.compose import add_background, compose_segments
+from arap_flow.ops.compose import add_background, compose_segments
 
 
 def test_compose_segments_last_write_wins():

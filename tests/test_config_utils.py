@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from arap_flow_tpu.utils.config import FrameworkConfig
-from arap_flow_tpu.utils.profiling import StageTimer, save_solver_iterations
+from arap_flow.utils.config import FrameworkConfig
+from arap_flow.utils.profiling import StageTimer, save_solver_iterations
 
 
 def test_config_env_overrides(monkeypatch):
@@ -13,7 +13,7 @@ def test_config_env_overrides(monkeypatch):
     monkeypatch.setenv("ARAP_W_FIT", "50")
     cfg = FrameworkConfig.from_env()
     assert cfg.solver.pcg_iters_early == 150.0
-    assert cfg.solver.backend == "xla"
+    assert cfg.solver.static_key == (19, 8, 400)
     assert cfg.raster == "host"
     assert cfg.weights.w_fit == 50.0
     assert cfg.weights.w_reg == 0.01  # untouched default
@@ -28,7 +28,7 @@ def test_config_defaults():
 def test_env_schedule_overrides_cli(monkeypatch):
     """ARAP_SCHEDULE wins over the CLI --schedule base (env precedence,
     $ARAP_PLAN model), in both directions."""
-    from arap_flow_tpu.pipeline.deform_tool import make_framework_config
+    from arap_flow.pipeline.deform_tool import make_framework_config
 
     monkeypatch.setenv("ARAP_SCHEDULE", "fast")
     assert make_framework_config("parity").solver.pcg_iters_early == 150.0
@@ -39,8 +39,8 @@ def test_env_schedule_overrides_cli(monkeypatch):
 
 
 def _tiny_deform_inputs(tmp_path):
-    from arap_flow_tpu.io.image import save_image
-    from arap_flow_tpu.pipeline.deform_tool import FramePaths
+    from arap_flow.io.image import save_image
+    from arap_flow.pipeline.deform_tool import FramePaths
 
     H, W = 32, 40
     rng = np.random.default_rng(3)
@@ -61,11 +61,11 @@ def test_env_config_reaches_deform_pipeline(tmp_path, monkeypatch):
     """ARAP_RASTER=host routes products through the reference-exact host
     rasterizer, and ARAP_W_FIT changes the solved flow — the env overrides
     are live end to end, not just parsed (VERDICT r3 weak #2/#5)."""
-    from arap_flow_tpu.io import flo
-    from arap_flow_tpu.ops.solver import SolverConfig
-    from arap_flow_tpu.pipeline.deform_tool import deform_frames
+    from arap_flow.io import flo
+    from arap_flow.ops.solver import SolverConfig
+    from arap_flow.pipeline.deform_tool import deform_frames
 
-    import arap_flow_tpu.native.runtime as rt
+    import arap_flow.native.runtime as rt
 
     fr = _tiny_deform_inputs(tmp_path)
     small = SolverConfig(num_anneal=3, gn_iters=2, max_pcg_iters=60,
@@ -95,7 +95,7 @@ def test_env_config_reaches_deform_pipeline(tmp_path, monkeypatch):
 def test_para_gen_env_overrides(tmp_path, monkeypatch):
     """main_pipeline consumes FrameworkConfig: ARAP_MATCHER overrides the CLI
     matcher and ARAP_RASTER=host forces the exact per-pair mode."""
-    from arap_flow_tpu.pipeline.para_gen import PipelineFlags, main_pipeline
+    from arap_flow.pipeline.para_gen import PipelineFlags, main_pipeline
 
     inp = tmp_path / "in"
     (inp / "orgRGB").mkdir(parents=True)

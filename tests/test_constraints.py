@@ -3,8 +3,8 @@ main.cpp:26-50, 95-101)."""
 
 import numpy as np
 
-from arap_flow_tpu.io import constraints as C
-from arap_flow_tpu.io.image import mask_to_arap, segment_mask_to_arap, ARAP_BG
+from arap_flow.io import constraints as C
+from arap_flow.io.image import mask_to_arap, segment_mask_to_arap, ARAP_BG
 
 
 def test_filter_matches_vectorized_matches_scalar():

@@ -3,8 +3,8 @@ only removes provably-inert excluded pixels)."""
 
 import numpy as np
 
-from arap_flow_tpu.models.arap import ArapDeformer, crop_box
-from arap_flow_tpu.ops.solver import SolverConfig
+from arap_flow.models.arap import ArapDeformer, crop_box
+from arap_flow.ops.solver import SolverConfig
 
 
 def _problem(H=56, W=72):
@@ -51,8 +51,8 @@ def test_tight_solve_margin_exact():
     border-pin lemmas); with solve_margin=2 the object must drop into a
     SMALLER solve bucket than with margin=8 while products still match the
     full-frame solve."""
-    from arap_flow_tpu.ops.energy import ArapWeights
-    from arap_flow_tpu.pipeline.batch import make_task
+    from arap_flow.ops.energy import ArapWeights
+    from arap_flow.pipeline.batch import make_task
 
     H, W = 200, 300
     rng = np.random.default_rng(3)
@@ -98,8 +98,8 @@ def test_transposed_solve_matches_full():
     transposes the warp field back — products must match the full-frame
     solve (the reflection conjugates the energy: same systems up to
     variable order and angle sign)."""
-    from arap_flow_tpu.ops.energy import ArapWeights
-    from arap_flow_tpu.pipeline.batch import make_task
+    from arap_flow.ops.energy import ArapWeights
+    from arap_flow.pipeline.batch import make_task
 
     H, W = 300, 450
     rng = np.random.default_rng(5)
@@ -138,8 +138,8 @@ def test_canvas_decoupling_large_displacement():
     landing margins are solved nowhere); products must still match the
     full-frame solve — flow on the tight box, warped RGB/mask landing far
     outside it on the canvas."""
-    from arap_flow_tpu.pipeline.batch import make_task
-    from arap_flow_tpu.ops.energy import ArapWeights
+    from arap_flow.pipeline.batch import make_task
+    from arap_flow.ops.energy import ArapWeights
 
     H, W = 200, 300
     rng = np.random.default_rng(1)

@@ -7,9 +7,9 @@ import os.path as osp
 import numpy as np
 from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.pipeline.dmo_gen import assemble, main as dmo_main, run
-from arap_flow_tpu.pipeline.para_gen import PipelineFlags, main_pipeline
+from arap_flow.io import flo
+from arap_flow.pipeline.dmo_gen import assemble, main as dmo_main, run
+from arap_flow.pipeline.para_gen import PipelineFlags, main_pipeline
 
 from test_pipeline import CFG
 

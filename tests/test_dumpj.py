@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from arap_flow_tpu.io.constraints import add_border_pins
-from arap_flow_tpu.ops import energy as E
+from arap_flow.io.constraints import add_border_pins
+from arap_flow.ops import energy as E
 
 
 def _problem(H=12, W=16, seed=0):

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.io.constraints import add_border_pins
+from arap_flow.ops import energy as E
+from arap_flow.io.constraints import add_border_pins
 
 
 def _problem(H=13, W=17, seed=0, with_constraints=True):
@@ -109,7 +109,7 @@ def test_compact_operands_match_full():
     every solver-relevant plane, and the solve is bitwise identical."""
     import jax
 
-    from arap_flow_tpu.ops import solver as S
+    from arap_flow.ops import solver as S
 
     H, W = 24, 40
     rng = np.random.default_rng(3)

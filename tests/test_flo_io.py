@@ -4,7 +4,7 @@ format (sintel_io.py:26-73) and the shipped cat512 golden flow."""
 import numpy as np
 import pytest
 
-from arap_flow_tpu.io import flo
+from arap_flow.io import flo
 
 
 def test_roundtrip_random(tmp_path):

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from arap_flow_tpu.io.constraints import add_border_pins
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.ops import generic as G
-from arap_flow_tpu.ops import solver as S
-from arap_flow_tpu.ops.lm import LMConfig, lm_solve
+from arap_flow.io.constraints import add_border_pins
+from arap_flow.ops import energy as E
+from arap_flow.ops import generic as G
+from arap_flow.ops import solver as S
+from arap_flow.ops.lm import LMConfig, lm_solve
 
 
 def _problem(H=14, W=18, seed=0):
@@ -107,7 +107,7 @@ def _opt_lifecycle_params(H, W):
 def _run_lifecycle(solver_kind, H=12, W=16, n_iter=4, l_iter=60):
     """Drive the Opt.h step loop with the given solver kind; returns
     (offset, angle, per-step cost list)."""
-    from arap_flow_tpu import compat as opt
+    from arap_flow import compat as opt
 
     state = opt.Opt_NewState()
     prob = opt.Opt_ProblemDefine(state, "arap_plan.t", solver_kind)
@@ -140,7 +140,7 @@ def test_opt_api_lm_routes_to_lm_solver():
     the step-cost trajectories differ, and the LM lifecycle reproduces
     ops.lm._lm_inner exactly on the same problem
     (CombinedSolverBase.h:74-81 / OptSolver.h:72-91 semantics)."""
-    from arap_flow_tpu.ops.lm import _lm_inner
+    from arap_flow.ops.lm import _lm_inner
 
     H, W, n_iter, l_iter = 12, 16, 4, 60
     x_gn, costs_gn = _run_lifecycle("gaussNewtonGPU", H, W, n_iter, l_iter)
@@ -176,8 +176,8 @@ def test_opt_api_liter_sweep_no_recompile():
     (the reference app's lIterations, main.cpp:215-221) and passes the
     actual budget as a traced float — 40-230 s/compile on the production
     platform makes a recompile-per-value facade unusable."""
-    from arap_flow_tpu.compat.opt_api import _gn_step_impl
-    from arap_flow_tpu.ops.lm import lm_step
+    from arap_flow.compat.opt_api import _gn_step_impl
+    from arap_flow.ops.lm import lm_step
 
     _run_lifecycle("gaussNewtonGPU", l_iter=50)
     _run_lifecycle("LMGPU", l_iter=50)
@@ -198,7 +198,7 @@ def test_opt_api_writeback_rejects_unwritable_bindings():
     in-place unknown update the Opt API contract promises."""
     import pytest
 
-    from arap_flow_tpu import compat as opt
+    from arap_flow import compat as opt
 
     H, W = 8, 10
     state = opt.Opt_NewState()
@@ -216,7 +216,7 @@ def test_opt_api_writeback_accepts_noncontiguous_view():
     """A writable but NON-contiguous binding (a strided row-slice view of a
     larger buffer) must be written back through, not rejected: the guard is
     'does the reshape alias the caller's memory', not C-contiguity."""
-    from arap_flow_tpu import compat as opt
+    from arap_flow import compat as opt
 
     H, W = 8, 10
     state = opt.Opt_NewState()
@@ -241,7 +241,7 @@ def test_opt_api_gn_zero_literations_is_noop():
     """lIterations=0 on the GN path runs zero PCG iterations: the unknowns
     come back unchanged (the original facade contract; LM clamps to 1 by
     design because its trust-region update needs a trial step)."""
-    from arap_flow_tpu import compat as opt
+    from arap_flow import compat as opt
 
     H, W = 8, 10
     state = opt.Opt_NewState()
@@ -258,7 +258,7 @@ def test_opt_api_gn_zero_literations_is_noop():
 
 def test_opt_api_lifecycle():
     """Full Opt.h lifecycle drives a solve and writes the unknowns back."""
-    from arap_flow_tpu import compat as opt
+    from arap_flow import compat as opt
 
     H, W = 12, 16
     state = opt.Opt_NewState()

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from arap_flow_tpu.io.constraints import add_border_pins
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.ops import generic as G
-from arap_flow_tpu.ops import graph as GR
+from arap_flow.io.constraints import add_border_pins
+from arap_flow.ops import energy as E
+from arap_flow.ops import generic as G
+from arap_flow.ops import graph as GR
 
 
 def _setup(H=12, W=15):
@@ -74,7 +74,7 @@ def test_graph_solve_via_generic_gn():
     )(x0)
 
     # image-domain reference
-    from arap_flow_tpu.ops import solver as S
+    from arap_flow.ops import solver as S
 
     cfg = S.SolverConfig(num_anneal=1, gn_iters=4, max_pcg_iters=120,
                          pcg_iters=120.0)

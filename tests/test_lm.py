@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arap_flow_tpu.io.constraints import add_border_pins
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.ops import lm as L
-from arap_flow_tpu.ops import solver as S
+from arap_flow.io.constraints import add_border_pins
+from arap_flow.ops import energy as E
+from arap_flow.ops import lm as L
+from arap_flow.ops import solver as S
 
 
 def _problem(H=24, W=32, seed=0, spread=4):
@@ -97,7 +97,6 @@ def test_lm_cost_monotone_and_matches_gn():
 
     gn_cfg = S.SolverConfig(
         num_anneal=4, gn_iters=5, max_pcg_iters=150, pcg_iters=150.0,
-        backend="xla",
     )
     _, gn_flow = S.solve(ops, gn_cfg)
     d = np.abs(np.asarray(flow) - np.asarray(gn_flow))

@@ -11,7 +11,7 @@ import stat
 import numpy as np
 from PIL import Image
 
-from arap_flow_tpu.pipeline.para_gen import (
+from arap_flow.pipeline.para_gen import (
     BackgroundPool,
     PipelineFlags,
     PairPaths,

@@ -3,8 +3,8 @@ and produce constraint tuples that survive the pipeline filter."""
 
 import numpy as np
 
-from arap_flow_tpu.io.constraints import filter_matches
-from arap_flow_tpu.ops.matching import match_images
+from arap_flow.io.constraints import filter_matches
+from arap_flow.ops.matching import match_images
 
 
 def _texture(H, W, seed=0):
@@ -181,7 +181,7 @@ def test_device_grid_select_matches_host_oracle():
     fields (_select_matches) exactly."""
     import jax.numpy as jnp
 
-    from arap_flow_tpu.ops.matching import (
+    from arap_flow.ops.matching import (
         _select_matches, match_fields, match_images)
 
     # frame large enough that match_images' coarsest-level cap
@@ -255,7 +255,7 @@ def test_stretch_hypotheses_extend_frontier():
     resample and recovers the field — the DeepMatching-style deformation
     tolerance (split-and-rescore analogue) this matcher uses. The identity-
     only negative control below is what makes this a test OF the bank."""
-    from arap_flow_tpu.ops.matching import STRETCH_HYPOTHESES
+    from arap_flow.ops.matching import STRETCH_HYPOTHESES
 
     H, W = 128, 192
     im1 = _texture(H, W, seed=13)
@@ -320,7 +320,7 @@ def test_multi_pair_dispatch_matches_per_pair():
     """match_images_dispatch_multi (ONE vmapped program per sub-batch) must
     produce the same matches as per-pair match_images: same math, batched
     through the program's leading axis."""
-    from arap_flow_tpu.ops.matching import (match_images_dispatch_multi,
+    from arap_flow.ops.matching import (match_images_dispatch_multi,
                                             match_images_fetch)
 
     H, W = 96, 128
@@ -361,7 +361,7 @@ def test_subpatch_budget_fallback_equals_rigid():
     rigid search — identical (du, dv) planes, no silent precision cliff."""
     import jax.numpy as jnp
 
-    from arap_flow_tpu.ops import matching as M
+    from arap_flow.ops import matching as M
 
     H, W, r, patch = 40, 56, 5, 8
     rng = np.random.default_rng(11)
@@ -386,7 +386,7 @@ def test_refine_passes_zero_score_shape():
     score stayed coarse-shaped and _device_grid_select mis-indexed it."""
     import jax.numpy as jnp
 
-    from arap_flow_tpu.ops.matching import match_grid, pyramid_flow
+    from arap_flow.ops.matching import match_grid, pyramid_flow
 
     H, W = 72, 104
     im1 = _texture(H, W, seed=5)

@@ -4,10 +4,10 @@ rasterizer bit-for-bit; flo codec round-trips; async writer persists files."""
 import numpy as np
 import pytest
 
-from arap_flow_tpu.native import build as nbuild
-from arap_flow_tpu.native import runtime as nrt
-from arap_flow_tpu.native.host_raster import rasterize_warp_exact, warp_from_flow
-from arap_flow_tpu.io import flo as flo_io
+from arap_flow.native import build as nbuild
+from arap_flow.native import runtime as nrt
+from arap_flow.native.host_raster import rasterize_warp_exact, warp_from_flow
+from arap_flow.io import flo as flo_io
 
 needs_native = pytest.mark.skipif(
     nbuild.load() is None, reason="native lib unavailable"
@@ -36,7 +36,7 @@ def test_native_raster_matches_numpy_exact():
 
 @needs_native
 def test_native_raster_matches_golden_cat512(cat512_warp):
-    from arap_flow_tpu.io.image import load_rgb, load_mask
+    from arap_flow.io.image import load_rgb, load_mask
     from PIL import Image
 
     rgb = load_rgb(cat512_warp["rgb"])

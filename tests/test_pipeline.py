@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.ops.solver import SolverConfig
-from arap_flow_tpu.pipeline.para_gen import (
+from arap_flow.io import flo
+from arap_flow.ops.solver import SolverConfig
+from arap_flow.pipeline.para_gen import (
     PipelineFlags,
     main_pipeline,
     scan_pairs,
@@ -152,8 +152,8 @@ def test_pipeline_fd2(tmp_path):
 def test_prewarm_compiles_bucket_programs():
     """--warmup: the prewarm pass builds and runs a batched dummy problem per
     bucket without error (compile-cache priming for cold pipeline starts)."""
-    from arap_flow_tpu.ops.energy import ArapWeights
-    from arap_flow_tpu.pipeline.para_gen import prewarm
+    from arap_flow.ops.energy import ArapWeights
+    from arap_flow.pipeline.para_gen import prewarm
 
     cfg = SolverConfig(num_anneal=1, gn_iters=1, max_pcg_iters=4,
                        pcg_iters=4.0)
@@ -165,7 +165,7 @@ def test_scan_pairs_repeated_digits_in_stem(tmp_path):
     """Frame stems where the frame number also appears earlier ('001_001')
     must pair to '001_002', not '002_002' (the round-5 str.replace fix:
     substitution happens at the regex match span only)."""
-    from arap_flow_tpu.pipeline.para_gen import scan_pairs
+    from arap_flow.pipeline.para_gen import scan_pairs
 
     inp = str(tmp_path / "d")
     for stem in ("001_001", "001_002"):
@@ -185,8 +185,8 @@ def test_warmup_full_env_selects_whole_ladder(tmp_path, monkeypatch):
     """ARAP_WARMUP_FULL=1 routes --warmup over the ENTIRE bucket ladder
     (CROP_BUCKETS) instead of the 13-shape prewarm subset — the full-ladder
     cold-start option (pairs with --exec_pack for a farm builder process)."""
-    from arap_flow_tpu.models.arap import CROP_BUCKETS
-    from arap_flow_tpu.pipeline import para_gen as pg
+    from arap_flow.models.arap import CROP_BUCKETS
+    from arap_flow.pipeline import para_gen as pg
 
     captured = {}
 
@@ -212,15 +212,15 @@ def test_prewarm_sharded_warms_the_sharded_executable():
     unsharded impl), at the sharded chunk size."""
     import jax
 
-    from arap_flow_tpu.models.arap import _canvas_sharded_fn
-    from arap_flow_tpu.ops.energy import ArapWeights
-    from arap_flow_tpu.pipeline.para_gen import prewarm
+    from arap_flow.models.arap import _canvas_sharded_fn
+    from arap_flow.ops.energy import ArapWeights
+    from arap_flow.pipeline.para_gen import prewarm
 
     if len(jax.devices()) < 8:
         import pytest
 
         pytest.skip("needs the virtual multi-device mesh")
-    from arap_flow_tpu.parallel import make_mesh
+    from arap_flow.parallel import make_mesh
 
     cfg = SolverConfig(num_anneal=1, gn_iters=1, max_pcg_iters=4,
                        pcg_iters=4.0)
@@ -233,8 +233,8 @@ def test_prewarm_sharded_warms_the_sharded_executable():
 def test_scan_shard_partitions_pairs(tmp_path):
     """--shard I/N: hosts partition the sorted pair scan disjointly and
     completely (multi-host dataset sharding, SURVEY §2.7)."""
-    from arap_flow_tpu.io.image import save_image
-    from arap_flow_tpu.pipeline.para_gen import PipelineFlags, scan_pairs
+    from arap_flow.io.image import save_image
+    from arap_flow.pipeline.para_gen import PipelineFlags, scan_pairs
 
     root = tmp_path / "data"
     (root / "orgRGB" / "seq0").mkdir(parents=True)
@@ -261,9 +261,9 @@ def test_generate_four_phases_end_to_end(tmp_path):
     """The phase-by-phase generator (generate.py parity): match -> convert ->
     deform -> bg each checkpoint to the filesystem and compose into a
     training list, restartable at any phase."""
-    from arap_flow_tpu.io.image import save_image
-    from arap_flow_tpu.pipeline import generate as G
-    from arap_flow_tpu.pipeline.para_gen import PipelineFlags, scan_pairs
+    from arap_flow.io.image import save_image
+    from arap_flow.pipeline import generate as G
+    from arap_flow.pipeline.para_gen import PipelineFlags, scan_pairs
 
     H, W = 48, 64
     rng = np.random.default_rng(9)
@@ -308,7 +308,7 @@ def test_cli_accepts_reference_noop_flags():
     """The reference CLI parses --rm-cnstr/--rm-wmask/--rm-tmp-cmd/
     --img-pattern but never reads them (para_gen.py:615-618); we accept them
     as no-ops so reference command lines are drop-in."""
-    from arap_flow_tpu.pipeline.para_gen import parse_args
+    from arap_flow.pipeline.para_gen import parse_args
 
     f = parse_args([
         "--input", "/tmp/in", "--output", "/tmp/out",

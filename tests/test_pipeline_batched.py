@@ -6,8 +6,8 @@ import os.path as osp
 import numpy as np
 from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.pipeline.para_gen import PipelineFlags, main_pipeline
+from arap_flow.io import flo
+from arap_flow.pipeline.para_gen import PipelineFlags, main_pipeline
 
 from test_pipeline import _make_dataset, _smooth_texture, CFG, DX, DY
 
@@ -18,7 +18,7 @@ def test_batched_matches_simple(tmp_path):
 
     out_s = str(tmp_path / "out_simple")
     out_b = str(tmp_path / "out_batched")
-    cfg = CFG._replace(backend="xla")  # CPU test: force non-pallas
+    cfg = CFG
     main_pipeline(
         PipelineFlags(input=inp, output=out_s, fd=1, multseg=True, seed=0),
         solver_cfg=cfg,
@@ -80,7 +80,7 @@ def test_sharded_matches_batched_byte_identical(tmp_path):
         pytest.skip("needs the virtual multi-device mesh")
     inp = str(tmp_path / "data")
     _make_dataset(inp, n_frames=4, two_objects=True)
-    cfg = CFG._replace(backend="xla")
+    cfg = CFG
     out_b = str(tmp_path / "out_batched")
     out_s = str(tmp_path / "out_sharded")
     main_pipeline(
@@ -118,7 +118,7 @@ def test_shard_times_sharded_matches_single_host(tmp_path):
         pytest.skip("needs the virtual multi-device mesh")
     inp = str(tmp_path / "data")
     _make_dataset(inp, n_frames=4, two_objects=True)
-    cfg = CFG._replace(backend="xla")
+    cfg = CFG
     out_1 = str(tmp_path / "out_single")
     out_s = str(tmp_path / "out_sharded")
     main_pipeline(
@@ -155,10 +155,10 @@ def test_fallback_respects_weights():
     inside run_tasks; that solve must use the caller's energy weights, not the
     defaults (regression: batch.py's fallback once dropped the weights
     argument to build_compact)."""
-    from arap_flow_tpu.io.constraints import add_border_pins
-    from arap_flow_tpu.models.arap import ArapDeformer
-    from arap_flow_tpu.ops.energy import ArapWeights
-    from arap_flow_tpu.pipeline.batch import make_task, run_tasks
+    from arap_flow.io.constraints import add_border_pins
+    from arap_flow.models.arap import ArapDeformer
+    from arap_flow.ops.energy import ArapWeights
+    from arap_flow.pipeline.batch import make_task, run_tasks
 
     Hs, Ws = 48, 64
     rng = np.random.default_rng(3)
@@ -167,7 +167,7 @@ def test_fallback_respects_weights():
     mask[4:44, 4:60] = 0  # nearly the whole frame: no bucket fits
     cons = np.array([[20, 20, 24, 23], [40, 30, 44, 33]], np.int32)
     weights = ArapWeights(w_fit=10.0, w_reg=0.5)
-    cfg = CFG._replace(backend="xla")
+    cfg = CFG
 
     assert make_task(0, 0, rgb, mask, cons, weights) is None
     pinned = add_border_pins(cons, Ws, Hs)
@@ -175,12 +175,12 @@ def test_fallback_respects_weights():
         [], [(0, 0, rgb, mask, pinned)], cfg, weights=weights
     )[(0, 0)]
 
-    ref = ArapDeformer(cfg._replace(backend="xla"), weights).deform(
+    ref = ArapDeformer(cfg, weights).deform(
         rgb, mask, cons
     )
     np.testing.assert_allclose(out.flow, ref.flow, atol=1e-5)
     # and the weights demonstrably matter: default weights give a different flow
-    ref_default = ArapDeformer(cfg._replace(backend="xla")).deform(
+    ref_default = ArapDeformer(cfg).deform(
         rgb, mask, cons
     )
     assert np.abs(ref.flow - ref_default.flow).max() > 0.05
@@ -194,7 +194,7 @@ def test_batched_mixed_resolutions(tmp_path):
     out = str(tmp_path / "out")
     _make_seq(inp, "seq_a", 64, 80)
     _make_seq(inp, "seq_b", 48, 96)
-    cfg = CFG._replace(backend="xla")
+    cfg = CFG
     triples = main_pipeline(
         PipelineFlags(input=inp, output=out, fd=1, seed=0, mode="batched"),
         solver_cfg=cfg,
@@ -211,11 +211,10 @@ def test_batched_mixed_resolutions(tmp_path):
         assert abs(np.median(v[obj]) - DY) < 0.5
 
 
-def test_canvas_sharded_pallas_matches_unsharded():
+def test_canvas_sharded_matches_unsharded():
     """The production batched dispatch (solve_and_raster_canvas) under the
-    8-device mesh with backend='pallas' (interpret on CPU — the same kernel
-    code a TPU slice runs under shard_map) must match the unsharded batched
-    run byte-for-byte on every product."""
+    8-device mesh (shard_map over 'data', one problem per device) must match
+    the unsharded batched run byte-for-byte on every product."""
     import jax
     import jax.numpy as jnp
 
@@ -223,11 +222,11 @@ def test_canvas_sharded_pallas_matches_unsharded():
         import pytest
 
         pytest.skip("needs the virtual multi-device mesh")
-    from arap_flow_tpu.io.constraints import add_border_pins
-    from arap_flow_tpu.models.arap import solve_and_raster_canvas
-    from arap_flow_tpu.ops import energy as E
-    from arap_flow_tpu.ops.solver import SolverConfig
-    from arap_flow_tpu.parallel import make_mesh
+    from arap_flow.io.constraints import add_border_pins
+    from arap_flow.models.arap import solve_and_raster_canvas
+    from arap_flow.ops import energy as E
+    from arap_flow.ops.solver import SolverConfig
+    from arap_flow.parallel import make_mesh
 
     H_, W_ = 32, 128
     rng = np.random.default_rng(0)
@@ -247,7 +246,7 @@ def test_canvas_sharded_pallas_matches_unsharded():
     rgb_b = jnp.asarray(np.stack(rgb_list))
     offs = jnp.zeros((8, 2), jnp.int32)
     cfg = SolverConfig(num_anneal=2, gn_iters=1, max_pcg_iters=25,
-                       pcg_iters=25.0, backend="pallas")
+                       pcg_iters=25.0)
     mesh = make_mesh(data=8, space=1)
     f1, r1, m1 = solve_and_raster_canvas(batched, rgb_b, offs, cfg,
                                          canvas_hw=(H_, W_), mesh=None)

@@ -12,7 +12,7 @@ import os.path as osp
 import numpy as np
 from PIL import Image
 
-from arap_flow_tpu.pipeline.para_gen import PipelineFlags, main_pipeline
+from arap_flow.pipeline.para_gen import PipelineFlags, main_pipeline
 
 # shared texture recipe + solver schedule: import, don't duplicate — a tuning
 # change applied to test_pipeline alone must not desynchronize this battery
@@ -81,7 +81,7 @@ def test_mask_gate_refsum_semantics(tmp_path):
     VALUE gate (para_gen.py:251): a 9-px mask of 255-valued pixels is
     SKIPPED by the default count gate but PASSES refsum (9*255 > 10).
     Unit-level check on has_mask itself plus a pipeline-level run."""
-    from arap_flow_tpu.pipeline.para_gen import has_mask
+    from arap_flow.pipeline.para_gen import has_mask
 
     nine = np.zeros((H, W), np.uint8)
     nine[30:33, 40:43] = 255  # 9 px, value sum 2295

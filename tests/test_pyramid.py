@@ -3,10 +3,10 @@ mode; accuracy tradeoffs documented in ops/pyramid.py)."""
 
 import numpy as np
 
-from arap_flow_tpu.io.constraints import add_border_pins
-from arap_flow_tpu.ops.pyramid import coarsen_problem, solve_pyramid
-from arap_flow_tpu.ops.solver import SolverConfig
-from arap_flow_tpu.ops.energy import ArapWeights
+from arap_flow.io.constraints import add_border_pins
+from arap_flow.ops.pyramid import coarsen_problem, solve_pyramid
+from arap_flow.ops.solver import SolverConfig
+from arap_flow.ops.energy import ArapWeights
 
 
 def test_pyramid_recovers_translation():
@@ -16,7 +16,7 @@ def test_pyramid_recovers_translation():
     cons = np.stack([xs.ravel(), ys.ravel(), xs.ravel() + 4, ys.ravel() + 2], 1)
     cons = add_border_pins(cons.astype(np.int32), W, H)
     cfg = SolverConfig(num_anneal=4, gn_iters=2, max_pcg_iters=80,
-                       pcg_iters=80.0, backend="xla")
+                       pcg_iters=80.0)
     x, flow = solve_pyramid(mask, cons, cfg, fine_anneal=2)
     f = np.asarray(flow)
     inner = (slice(8, H - 8), slice(8, W - 8))
@@ -35,7 +35,7 @@ def test_coarsen_problem():
 
 
 def test_cli_dispatcher(capsys):
-    from arap_flow_tpu.__main__ import main
+    from arap_flow.__main__ import main
 
     assert main([]) == 1
     assert main(["--help"]) == 0

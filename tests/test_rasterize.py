@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import pytest
 from PIL import Image
 
-from arap_flow_tpu.io import flo
-from arap_flow_tpu.io.image import load_rgb, load_mask
-from arap_flow_tpu.native.host_raster import rasterize_warp_exact, warp_from_flow
-from arap_flow_tpu.ops.rasterize import rasterize, rasterize_flow, make_warp
+from arap_flow.io import flo
+from arap_flow.io.image import load_rgb, load_mask
+from arap_flow.native.host_raster import rasterize_warp_exact, warp_from_flow
+from arap_flow.ops.rasterize import rasterize, rasterize_flow, make_warp
 
 
 def _device(warp_np, rgb, mask, **kw):
@@ -116,7 +116,7 @@ def test_anchor_without_window_rejected():
     import jax.numpy as jnp
     import pytest
 
-    from arap_flow_tpu.ops.rasterize import rasterize
+    from arap_flow.ops.rasterize import rasterize
 
     H, W = 8, 8
     warp = jnp.zeros((2, H, W), jnp.float32)

@@ -3,7 +3,7 @@ solver determinism check."""
 
 import numpy as np
 
-from arap_flow_tpu.io import sintel
+from arap_flow.io import sintel
 
 
 def test_depth_roundtrip(tmp_path):
@@ -45,9 +45,9 @@ def test_solver_determinism():
     """Same inputs -> bitwise-identical flow across runs. The reference's PCG
     reductions use unordered float atomicAdd (util.t:528-596) and are NOT
     deterministic; ours are (XLA reductions) — a documented improvement."""
-    from arap_flow_tpu.io.constraints import add_border_pins
-    from arap_flow_tpu.ops import energy as E
-    from arap_flow_tpu.ops import solver as S
+    from arap_flow.io.constraints import add_border_pins
+    from arap_flow.ops import energy as E
+    from arap_flow.ops import solver as S
 
     H, W = 20, 24
     mask = np.zeros((H, W), np.uint8)
@@ -63,7 +63,7 @@ def test_solver_determinism():
 
 
 def test_imagedump_roundtrip(tmp_path):
-    from arap_flow_tpu.io.imagedump import imagedump_read, imagedump_write
+    from arap_flow.io.imagedump import imagedump_read, imagedump_write
 
     rng = np.random.default_rng(5)
     img = rng.standard_normal((7, 9, 2)).astype(np.float32)

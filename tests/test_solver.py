@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from arap_flow_tpu.io.constraints import add_border_pins
-from arap_flow_tpu.ops import energy as E
-from arap_flow_tpu.ops import solver as S
+from arap_flow.io.constraints import add_border_pins
+from arap_flow.ops import energy as E
+from arap_flow.ops import solver as S
 
 
 def _tiny_problem(H=9, W=11, seed=0):

@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import pytest
 
-from arap_flow_tpu.ops.textures import (
+from arap_flow.ops.textures import (
     FAMILIES,
     brick_texture,
     checker_texture,
@@ -43,7 +43,7 @@ def test_deterministic():
 
 
 def test_cli(tmp_path):
-    from arap_flow_tpu.pipeline.texture_gen import main
+    from arap_flow.pipeline.texture_gen import main
 
     main(["--output", str(tmp_path), "--num", "3", "--size", "64", "48",
           "--seed", "1"])
@@ -170,7 +170,7 @@ def test_magic_bounded_and_varied():
 def test_field_spatial_structure():
     """Every family field is spatially correlated (textures, not white noise):
     neighbor correlation well above zero."""
-    from arap_flow_tpu.ops.textures import _FAMILY_FNS
+    from arap_flow.ops.textures import _FAMILY_FNS
 
     for name, fn in _FAMILY_FNS.items():
         f = np.asarray(fn(jax.random.PRNGKey(9), 96, 128)).astype(np.float64)
